@@ -26,8 +26,8 @@ def main():
     import numpy as np
     from jax import lax
 
-    from qcnn_gpu_tpu.models.topology import LAYER_NAMES, QVRCNN_LAYERS
-    from qcnn_gpu_tpu.testing import synth_engine_params
+    from qcnn_gpu.models.topology import LAYER_NAMES, QVRCNN_LAYERS
+    from qcnn_gpu.testing import synth_engine_params
 
     idx = LAYER_NAMES.index(args.layer)
     layer = QVRCNN_LAYERS[idx]

@@ -1,4 +1,4 @@
-"""Wide-CNN (EDSR-scale) single-chip benchmark — BASELINE config 5.
+"""Wide-CNN (EDSR-scale) single-GPU benchmark — BASELINE config 5.
 
 Measures the INT8 wide restoration net (models/wide.py) on real hardware
 at its production scale (256 channels x 10 body convs, ~5.3M int8
@@ -24,12 +24,11 @@ def main(channels=256, blocks=10, h=480, w=832):
     channels, blocks, h, w = int(channels), int(blocks), int(h), int(w)
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from qcnn_gpu.compile_cache import enable_compile_cache
+    from qcnn_gpu.models import wide as W
+    from qcnn_gpu.testing import synth_frames
 
-    from qcnn_gpu_tpu.models import wide as W
-    from qcnn_gpu_tpu.testing import synth_frames
-
+    enable_compile_cache()
     # correctness first: a reduced-width twin vs the NumPy oracle
     p_small = W.synth_wide_params(channels=32, blocks=3, seed=5)
     xs = synth_frames(1, 48, 64, seed=6)

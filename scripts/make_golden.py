@@ -39,7 +39,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from qcnn_gpu_tpu.data.golden import (  # noqa: E402
+from qcnn_gpu.data.golden import (  # noqa: E402
     N_EVAL,
     QP_QUALITY,
     golden_clip,
@@ -76,21 +76,21 @@ def main():
         args.per_channel = args.wbits == 4
     suffix = "" if args.wbits == 8 else f"_int{args.wbits}"
 
-    from qcnn_gpu_tpu.data import yuv
-    from qcnn_gpu_tpu.data.datasets import PatchDataset
-    from qcnn_gpu_tpu.data.model_files import (
+    from qcnn_gpu.data import yuv
+    from qcnn_gpu.data.datasets import PatchDataset
+    from qcnn_gpu.data.model_files import (
         write_static_qfp_pc,
         write_static_qfp_vect_c,
     )
-    from qcnn_gpu_tpu.engine.calibrate import (
+    from qcnn_gpu.engine.calibrate import (
         calibrate_blu_bounds,
         quantize_model,
         solve_table,
     )
-    from qcnn_gpu_tpu.models import oracle as O
-    from qcnn_gpu_tpu.parallel.mesh import make_mesh
-    from qcnn_gpu_tpu.train.finetune import quant_finetune
-    from qcnn_gpu_tpu.train.trainer import TrainConfig, Trainer
+    from qcnn_gpu.models import oracle as O
+    from qcnn_gpu.parallel.mesh import make_mesh
+    from qcnn_gpu.train.finetune import quant_finetune
+    from qcnn_gpu.train.trainer import TrainConfig, Trainer
 
     os.makedirs(args.out_dir, exist_ok=True)
     clean_tr, clean_ev = golden_clip()

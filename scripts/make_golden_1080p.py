@@ -28,11 +28,11 @@ def main():
 
     jax.config.update("jax_platform_name", "cpu")
 
-    from qcnn_gpu_tpu.data import yuv
-    from qcnn_gpu_tpu.data.golden import GOLDEN_DIR, QP_QUALITY, fullhd_clip, jpeg_anchor
-    from qcnn_gpu_tpu.data.model_files import read_static_qfp_vect_c
-    from qcnn_gpu_tpu.engine.tiled import restore_tiled
-    from qcnn_gpu_tpu.models.qvrcnn import make_forward
+    from qcnn_gpu.data import yuv
+    from qcnn_gpu.data.golden import GOLDEN_DIR, QP_QUALITY, fullhd_clip, jpeg_anchor
+    from qcnn_gpu.data.model_files import read_static_qfp_vect_c
+    from qcnn_gpu.engine.tiled import restore_tiled
+    from qcnn_gpu.models.qvrcnn import make_forward
 
     clean = fullhd_clip()
     goldens = {}
@@ -40,9 +40,7 @@ def main():
         anchor = jpeg_anchor(clean, QP_QUALITY[qp])
         before = yuv.psnr(anchor, clean)
         p = read_static_qfp_vect_c(os.path.join(GOLDEN_DIR, f"model_q{qp}.data"))
-        # tiled 540x960 == whole-frame (tested); also the path the TPU
-        # engine uses at this geometry (whole-frame 1080p XLA is rejected
-        # by the remote toolchain)
+        # tiled 540x960 == whole-frame (tested); bounds the CPU's memory
         rec = restore_tiled(make_forward(p, impl="auto"), anchor, 540, 960)
         after = yuv.psnr(rec, clean)
         goldens[str(qp)] = {"before": round(before, 6), "after": round(after, 6)}

@@ -22,17 +22,17 @@ def main():
 
     jax.config.update("jax_platform_name", "cpu")
 
-    from qcnn_gpu_tpu.data import yuv
-    from qcnn_gpu_tpu.data.golden import (
+    from qcnn_gpu.data import yuv
+    from qcnn_gpu.data.golden import (
         GOLDEN_DIR,
         QP_QUALITY,
         classa_clip,
         jpeg_anchor,
         write_anchor_bytes,
     )
-    from qcnn_gpu_tpu.data.model_files import read_static_qfp_vect_c
-    from qcnn_gpu_tpu.engine.tiled import restore_tiled
-    from qcnn_gpu_tpu.models.qvrcnn import make_forward
+    from qcnn_gpu.data.model_files import read_static_qfp_vect_c
+    from qcnn_gpu.engine.tiled import restore_tiled
+    from qcnn_gpu.models.qvrcnn import make_forward
 
     clean = classa_clip()
     goldens = {}

@@ -2,7 +2,7 @@
 
 The hopper goldens (scripts/make_golden.py) cover one photograph at
 416x240. This script records HELD-OUT goldens for the multi-region
-composite clip at 832x480 (qcnn_gpu_tpu/data/golden.py composite_clip):
+composite clip at 832x480 (qcnn_gpu/data/golden.py composite_clip):
 content the committed models never trained on, at a geometry that
 exercises the kernel's atlas spill classes and the host tiling path a
 240p clip never reaches. The committed per-QP engine models are reused
@@ -10,9 +10,9 @@ as-is — the point is a regression TRIPWIRE over different code paths,
 not a quality claim (generalization gains on unseen content are small).
 
 PSNR is computed from the integer engine's output, which is bit-exact
-across platforms, so goldens generated on CPU hold on TPU.
+across platforms, so goldens generated on CPU hold on the GPU.
 
-    env JAX_PLATFORM_NAME=cpu python scripts/make_golden_eval.py
+    env JAX_PLATFORMS=cpu python scripts/make_golden_eval.py
 """
 
 import json
@@ -23,8 +23,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from qcnn_gpu_tpu.data import yuv  # noqa: E402
-from qcnn_gpu_tpu.data.golden import (  # noqa: E402
+from qcnn_gpu.data import yuv  # noqa: E402
+from qcnn_gpu.data.golden import (  # noqa: E402
     GOLDEN_DIR,
     H2,
     N_EVAL2,
@@ -33,8 +33,8 @@ from qcnn_gpu_tpu.data.golden import (  # noqa: E402
     composite_clip,
     jpeg_anchor,
 )
-from qcnn_gpu_tpu.data.model_files import read_static_qfp_vect_c  # noqa: E402
-from qcnn_gpu_tpu.models.qvrcnn import make_forward  # noqa: E402
+from qcnn_gpu.data.model_files import read_static_qfp_vect_c  # noqa: E402
+from qcnn_gpu.models.qvrcnn import make_forward  # noqa: E402
 
 EVAL_PHASE = 0.5  # no overlap with any training pan
 

@@ -83,18 +83,18 @@ def main():
 
     import jax
 
-    from qcnn_gpu_tpu.data import yuv
-    from qcnn_gpu_tpu.data.datasets import PatchDataset
-    from qcnn_gpu_tpu.data.model_files import write_static_qfp_vect_c
-    from qcnn_gpu_tpu.engine.calibrate import (
+    from qcnn_gpu.data import yuv
+    from qcnn_gpu.data.datasets import PatchDataset
+    from qcnn_gpu.data.model_files import write_static_qfp_vect_c
+    from qcnn_gpu.engine.calibrate import (
         calibrate_blu_bounds,
         quantize_model,
         solve_table,
     )
-    from qcnn_gpu_tpu.models import float_model as FM
-    from qcnn_gpu_tpu.models import oracle as O
-    from qcnn_gpu_tpu.parallel.mesh import make_mesh
-    from qcnn_gpu_tpu.train.trainer import TrainConfig, Trainer
+    from qcnn_gpu.models import float_model as FM
+    from qcnn_gpu.models import oracle as O
+    from qcnn_gpu.parallel.mesh import make_mesh
+    from qcnn_gpu.train.trainer import TrainConfig, Trainer
 
     os.makedirs(args.out_dir, exist_ok=True)
     t0 = time.time()
@@ -140,7 +140,7 @@ def main():
     # (model.py:170-233 flow) — recovers part of the float->int8 loss
     ft_psnr = None
     if args.finetune_steps:
-        from qcnn_gpu_tpu.train.finetune import quant_finetune
+        from qcnn_gpu.train.finetune import quant_finetune
 
         print(f"quant fine-tune {args.finetune_steps} steps...", flush=True)
         ft_params = quant_finetune(

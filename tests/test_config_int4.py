@@ -5,11 +5,11 @@ import pytest
 
 pytestmark = pytest.mark.quick  # fast host tier: `pytest -m quick`
 
-from qcnn_gpu_tpu.config import Config, EngineConfig
-from qcnn_gpu_tpu.models import oracle as O
-from qcnn_gpu_tpu.models.oracle import EngineParams
-from qcnn_gpu_tpu.quant.solver import BLU_INIT, solve_network, stepw_from_weights
-from qcnn_gpu_tpu.testing import synth_float_weights, synth_frames
+from qcnn_gpu.config import Config, EngineConfig
+from qcnn_gpu.models import oracle as O
+from qcnn_gpu.models.oracle import EngineParams
+from qcnn_gpu.quant.solver import BLU_INIT, solve_network, stepw_from_weights
+from qcnn_gpu.testing import synth_float_weights, synth_frames
 
 
 def test_config_roundtrip(tmp_path):
@@ -49,7 +49,7 @@ def test_int4_grid_and_forward():
 
 
 def test_int4_runs_through_jax_engine():
-    from qcnn_gpu_tpu.models.qvrcnn import make_forward
+    from qcnn_gpu.models.qvrcnn import make_forward
 
     ws, bs = synth_float_weights(2)
     table = solve_network(stepw_from_weights(ws, bits=4), BLU_INIT[27])

@@ -5,9 +5,9 @@ import pytest
 
 import jax
 
-from qcnn_gpu_tpu.models import oracle as O
-from qcnn_gpu_tpu.models.qvrcnn_dynamic import make_dynamic_forward
-from qcnn_gpu_tpu.testing import (
+from qcnn_gpu.models import oracle as O
+from qcnn_gpu.models.qvrcnn_dynamic import make_dynamic_forward
+from qcnn_gpu.testing import (
     load_table,
     synth_dynamic_params,
     synth_engine_params,
@@ -32,7 +32,7 @@ def test_dynamic_jax_bit_exact_and_telemetry():
 def test_dynamic_b_adj_telemetry_matches_oracle(tmp_path):
     """save_b_adj analog: device b_adj telemetry == oracle's adjusted
     biases, and the binary writer/reader roundtrips (qvrcnn.cu:288-304)."""
-    from qcnn_gpu_tpu.engine.calibrate import read_b_adj, save_b_adj
+    from qcnn_gpu.engine.calibrate import read_b_adj, save_b_adj
 
     p = synth_dynamic_params(32)
     run = make_dynamic_forward(p)
@@ -53,7 +53,7 @@ def test_dynamic_b_adj_telemetry_matches_oracle(tmp_path):
 def test_hybrid_device_twin_bit_exact():
     """Device twin of the committed hybrid forward() (qvrcnn.cu:82-167)
     == oracle.forward_dynamic_hybrid, including the int8 wraps."""
-    from qcnn_gpu_tpu.models.qvrcnn_dynamic import make_hybrid_forward
+    from qcnn_gpu.models.qvrcnn_dynamic import make_hybrid_forward
 
     p = synth_engine_params(22)
     run = make_hybrid_forward(p)
@@ -71,9 +71,9 @@ def test_conv_validation_close_for_consistent_model():
     """Quantizing a float model with its own table: the float-scaled
     accumulators must track the engine accumulators to within accumulated
     quantization error (layer-relative)."""
-    from qcnn_gpu_tpu.engine.validate import conv_validation
-    from qcnn_gpu_tpu.models import float_model as FM
-    from qcnn_gpu_tpu.models.oracle import EngineParams
+    from qcnn_gpu.engine.validate import conv_validation
+    from qcnn_gpu.models import float_model as FM
+    from qcnn_gpu.models.oracle import EngineParams
 
     ws, bs = synth_float_weights(0)
     table = load_table(37)
@@ -95,7 +95,7 @@ def test_conv_validation_close_for_consistent_model():
 
 
 def test_viewmem_report_and_dump(tmp_path):
-    from qcnn_gpu_tpu.engine.validate import dump_features, viewmem_report
+    from qcnn_gpu.engine.validate import dump_features, viewmem_report
 
     p = synth_engine_params(27)
     frames = synth_frames(1, 24, 32, seed=1)
@@ -113,7 +113,7 @@ def test_viewmem_report_and_dump(tmp_path):
 def test_distributed_runner_single_process():
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from qcnn_gpu_tpu.parallel.distributed import DistributedRunner, global_mesh, initialize
+    from qcnn_gpu.parallel.distributed import DistributedRunner, global_mesh, initialize
 
     initialize()  # no-op single-process
     mesh = global_mesh(frames_hint=4, rows_hint=64)
@@ -124,6 +124,6 @@ def test_distributed_runner_single_process():
     rec = runner.restore(x)
     assert (rec == O.forward_blu(x, p)).all()
     ori = synth_frames(dp * 2, sp * 32, 48, seed=8)
-    from qcnn_gpu_tpu.data import yuv
+    from qcnn_gpu.data import yuv
 
     assert runner.psnr(rec, ori) == pytest.approx(yuv.psnr(rec, ori), abs=1e-9)

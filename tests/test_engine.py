@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from qcnn_gpu_tpu.data import model_files, yuv
-from qcnn_gpu_tpu.engine import Engine
-from qcnn_gpu_tpu.models import oracle as O
-from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
+from qcnn_gpu.data import model_files, yuv
+from qcnn_gpu.engine import Engine
+from qcnn_gpu.models import oracle as O
+from qcnn_gpu.testing import synth_engine_params, synth_frames
 
 
 @pytest.fixture
@@ -69,8 +69,8 @@ def test_missing_model_raises(tmp_path):
 
 def test_calibration_pipeline(tmp_path):
     """float params -> 3-sigma BLU -> table -> int model -> runs bit-exact."""
-    from qcnn_gpu_tpu.engine import calibrate as C
-    from qcnn_gpu_tpu.models import float_model as FM
+    from qcnn_gpu.engine import calibrate as C
+    from qcnn_gpu.models import float_model as FM
 
     params = FM.init_params(3)
     sample = synth_frames(1, 48, 64, seed=5)
@@ -90,8 +90,8 @@ def test_calibration_pipeline(tmp_path):
 
 
 def test_calibrate_dynamic_telemetry():
-    from qcnn_gpu_tpu.engine.calibrate import calibrate_dynamic
-    from qcnn_gpu_tpu.testing import synth_dynamic_params
+    from qcnn_gpu.engine.calibrate import calibrate_dynamic
+    from qcnn_gpu.testing import synth_dynamic_params
 
     p = synth_dynamic_params(37)
     frames = synth_frames(2, 32, 48, seed=2)
@@ -101,7 +101,7 @@ def test_calibrate_dynamic_telemetry():
 
 
 def test_cli_run_and_convert(tmp_path, clip, capsys):
-    from qcnn_gpu_tpu import cli
+    from qcnn_gpu import cli
 
     ori_p, anc_p, _, anchor = clip
     p = synth_engine_params(37)
@@ -131,7 +131,7 @@ def test_cli_run_and_convert(tmp_path, clip, capsys):
 
 
 def test_manifest_roundtrip(tmp_path):
-    from qcnn_gpu_tpu.data.manifest import JCTVC_SEQUENCES, load_manifest, save_manifest
+    from qcnn_gpu.data.manifest import JCTVC_SEQUENCES, load_manifest, save_manifest
 
     assert len(JCTVC_SEQUENCES) == 18
     path = str(tmp_path / "m.json")
@@ -142,22 +142,11 @@ def test_manifest_roundtrip(tmp_path):
         "Traffic_intra_main_HM16.0_anchor_Q22.yuv"
     )
 
-def test_engine_pallas_impl_on_cpu(clip, tmp_path):
-    """impl=pallas falls back to the interpreter off-TPU; output still
-    bit-exact vs the oracle."""
-    _, _, _, anchor = clip
-    p = synth_engine_params(37)
-    eng = Engine(impl="pallas", out_dir=str(tmp_path), batch_frames=3)
-    eng.set_model(37, p)
-    got = eng.restore(anchor, 37)
-    assert (got == O.forward_blu(anchor, p)).all()
-
-
 def test_tiled_restore_bit_exact():
     """Host halo tiling (engine/tiled.py) == whole-frame, every pixel,
     including ragged grids (H, W not multiples of the tile), one-axis
     tiling, and tiles larger than the frame."""
-    from qcnn_gpu_tpu.engine.tiled import restore_tiled
+    from qcnn_gpu.engine.tiled import restore_tiled
 
     p = synth_engine_params(37)
     frames = synth_frames(2, 100, 130, seed=3)
@@ -169,102 +158,10 @@ def test_tiled_restore_bit_exact():
 
 
 def test_tiled_restore_halo_guard():
-    from qcnn_gpu_tpu.engine.tiled import restore_tiled
+    from qcnn_gpu.engine.tiled import restore_tiled
 
     with pytest.raises(ValueError):
         restore_tiled(lambda t: t, synth_frames(1, 64, 64, seed=1), halo=3)
-
-
-def test_engine_tiled_fallback_bit_exact(tmp_path):
-    """Engine._run_tiled (the >1080p XLA-compile fallback) matches the
-    whole-frame program."""
-    p = synth_engine_params(22)
-    eng = Engine(impl="int", out_dir=str(tmp_path), batch_frames=4)
-    eng.set_model(22, p)
-    eng.tile = (48, 64)
-    frames = synth_frames(2, 100, 130, seed=9)
-    whole = eng.restore(frames, 22)
-    tiled = np.asarray(eng._run_tiled(22, frames))
-    assert (tiled == whole).all()
-
-
-def test_engine_demotes_pallas_failure_to_xla(monkeypatch):
-    """impl='auto' policy: a Mosaic compile failure at first call (not at
-    build — kernels compile lazily) demotes that (QP, geometry) to the XLA
-    graph and retries, so `auto` is always the fastest path that works —
-    while OTHER geometries keep the fast path (a one-off flake on a 4K
-    batch must not cost Pallas for every later 1080p batch), and
-    reset_demotions() re-probes after e.g. a compile-helper recovery."""
-    import jax
-
-    from qcnn_gpu_tpu.engine import runner as runner_mod
-    from qcnn_gpu_tpu.ops import pallas_pipeline3
-
-    calls = []
-
-    def flaky_build(p, **kw):
-        def run(frames):
-            calls.append(tuple(frames.shape[-2:]))
-            raise RuntimeError("tpu_compile_helper subprocess exit code 1")
-
-        run.impl = "pallas"
-        return run
-
-    # make the runner take the pallas branch even on the CPU test machine
-    monkeypatch.setattr(runner_mod.jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(pallas_pipeline3, "build_pallas_forward3", flaky_build)
-
-    p = synth_engine_params(37)
-    frames = synth_frames(2, 24, 40, seed=5)
-    eng = Engine(impl="auto")
-    eng.set_model(37, p)
-    rec = eng.restore(frames, qp=37)
-    assert (rec == O.forward_blu(frames, p)).all()
-    key = (37, "auto", id(None))
-    assert (key, (24, 40)) in eng._pallas_failed_geos
-    # subsequent batches at this geometry go straight to XLA (no re-probe)
-    n_calls = len(calls)
-    rec2 = eng.restore(frames, qp=37)
-    assert (rec2 == rec).all()
-    assert len(calls) == n_calls
-    # a DIFFERENT geometry re-probes the pallas path (and demotes itself)
-    frames2 = synth_frames(2, 32, 48, seed=7)
-    rec3 = eng.restore(frames2, qp=37)
-    assert (rec3 == O.forward_blu(frames2, p)).all()
-    assert len(calls) == n_calls + 1
-    assert (key, (32, 48)) in eng._pallas_failed_geos
-    # reset clears the demotions so the next call probes pallas again
-    eng.reset_demotions(37)
-    assert not eng._pallas_failed_geos
-    eng.restore(frames, qp=37)
-    assert len(calls) == n_calls + 2
-
-
-def test_engine_demotes_pallas_build_failure(monkeypatch):
-    """A BUILD-time pallas failure (bad tuned config, Mosaic reject at
-    trace time) must also demote under impl='auto' — it happens outside
-    the call-time try/except, so _program handles it itself."""
-    from qcnn_gpu_tpu.engine import runner as runner_mod
-    from qcnn_gpu_tpu.ops import pallas_pipeline3
-
-    def broken_build(p, **kw):
-        raise RuntimeError("Mosaic: failed to legalize")
-
-    monkeypatch.setattr(runner_mod.jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(pallas_pipeline3, "build_pallas_forward3", broken_build)
-
-    p = synth_engine_params(37)
-    frames = synth_frames(2, 24, 40, seed=6)
-    eng = Engine(impl="auto")
-    eng.set_model(37, p)
-    rec = eng.restore(frames, qp=37)
-    assert (rec == O.forward_blu(frames, p)).all()
-
-    # explicit impl='pallas' must propagate instead
-    eng2 = Engine(impl="pallas")
-    eng2.set_model(37, p)
-    with pytest.raises(RuntimeError, match="legalize"):
-        eng2.restore(frames, qp=37)
 
 
 def test_warmup_covers_streaming_shapes(clip, tmp_path):
@@ -293,28 +190,6 @@ def test_warmup_covers_streaming_shapes(clip, tmp_path):
     seen.clear()
     eng.warmup(37, 48, 64, frames=1)
     assert set(seen) == {(1, 48, 64)}
-
-
-def test_cli_run_impl_pallas3(tmp_path, clip):
-    """The shipping kernel is selectable from the CLI; on CPU the engine
-    builds it in Pallas interpret mode and stays bit-exact end-to-end."""
-    from qcnn_gpu_tpu import cli
-
-    ori_p, anc_p, _, anchor = clip
-    p = synth_engine_params(37)
-    vect = str(tmp_path / "m.vectc")
-    model_files.write_static_qfp_vect_c(vect, p)
-    rc = cli.main(
-        [
-            "run", "--ori", ori_p, "--anchor", anc_p, "--height", "48",
-            "--width", "64", "--frames", "3", "--model", vect, "--qp", "37",
-            "--impl", "pallas3", "--out-dir", str(tmp_path),
-            "--recon", str(tmp_path / "r3.yuv"),
-        ]
-    )
-    assert rc == 0
-    recon = yuv.read_y(str(tmp_path / "r3.yuv"), 48, 64)
-    assert (recon == O.forward_blu(anchor, p)).all()
 
 
 def test_restore_stream_duplex_bit_exact(tmp_path):
@@ -349,18 +224,18 @@ def test_run_sequence_duplex_transport(tmp_path, clip):
 
 
 def test_duplex_failure_evicts_transport(tmp_path, monkeypatch):
-    """A mid-stream duplex failure must NOT leave the desynced transport
-    cached: the producer can run send() calls past a receive() that
-    raised, so reusing the transport would decode silently wrong frames
-    (res = stale _res + cumsum). The engine evicts on failure; the next
-    duplex stream starts from a fresh transport and stays bit-exact."""
+    """A mid-stream duplex failure raises and must NOT leave the desynced
+    transport cached: the producer can run send() calls past a receive()
+    that raised, so reusing the transport would decode silently wrong
+    frames (res = stale _res + cumsum). The engine evicts on failure; the
+    next duplex stream starts from a fresh transport and stays bit-exact."""
     p = synth_engine_params(37)
     eng = Engine(impl="int", out_dir=str(tmp_path), batch_frames=2)
     eng.set_model(37, p)
     frames = synth_frames(6, 32, 48, seed=33)
     want = O.forward_blu(frames, p)
 
-    from qcnn_gpu_tpu.engine.packed import DuplexTransport
+    from qcnn_gpu.engine.packed import DuplexTransport
 
     calls = {"n": 0}
     orig = DuplexTransport.receive
@@ -373,8 +248,8 @@ def test_duplex_failure_evicts_transport(tmp_path, monkeypatch):
 
     monkeypatch.setattr(DuplexTransport, "receive", flaky)
     key = (37, (32, 48), 2)
-    got = eng.restore_stream(frames, 37, transport="duplex")
-    assert (got == want).all()  # raw fallback served the stream
+    with pytest.raises(RuntimeError, match="injected link failure"):
+        eng.restore_stream(frames, 37, transport="duplex")
     assert key not in eng._duplex  # desynced transport evicted
     monkeypatch.setattr(DuplexTransport, "receive", orig)
     got2 = eng.restore_stream(frames, 37, transport="duplex")
@@ -384,8 +259,8 @@ def test_duplex_failure_evicts_transport(tmp_path, monkeypatch):
 def test_duplex_send_snapshots_prev_frame(tmp_path):
     """DuplexTransport.send must copy the last frame: a caller reusing its
     frame buffer between batches must not corrupt the host reference."""
-    from qcnn_gpu_tpu.engine.packed import make_duplex_restore
-    from qcnn_gpu_tpu.models.qvrcnn import make_forward
+    from qcnn_gpu.engine.packed import make_duplex_restore
+    from qcnn_gpu.models.qvrcnn import make_forward
 
     p = synth_engine_params(37)
     run = make_forward(p, impl="int")
@@ -408,7 +283,7 @@ def test_cli_run_2d_mesh(tmp_path, clip):
     on disk artifacts, bit-exact vs the oracle."""
     import jax
 
-    from qcnn_gpu_tpu import cli
+    from qcnn_gpu import cli
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
@@ -467,3 +342,39 @@ def test_transport_auto_duplex_when_link_bound(tmp_path, clip, monkeypatch):
     got = eng.restore_stream(anchor[:2], 37, transport="auto")
     assert (got == O.forward_blu(anchor[:2], p)).all()
     assert eng._last_impl.endswith("+duplex")
+
+
+def _broken_program(monkeypatch):
+    """Make every restoration program the Engine builds fail when called."""
+    from qcnn_gpu.engine import runner as runner_mod
+
+    def broken_forward(p, impl="auto"):
+        def run(frames):
+            raise RuntimeError("injected device failure")
+
+        run.impl = "int"
+        return run
+
+    monkeypatch.setattr(runner_mod, "make_forward", broken_forward)
+
+
+@pytest.mark.parametrize("call", ["restore", "restore_stream"])
+def test_failing_program_raises(tmp_path, monkeypatch, call):
+    """A program that fails raises out of the Engine: nothing demotes it to
+    another implementation or to host tiling."""
+    _broken_program(monkeypatch)
+    eng = Engine(out_dir=str(tmp_path), batch_frames=2)
+    eng.set_model(37, synth_engine_params(37))
+    frames = synth_frames(3, 24, 40, seed=1)
+    with pytest.raises(RuntimeError, match="injected device failure"):
+        getattr(eng, call)(frames, 37)
+
+
+def test_set_model_drops_old_program(tmp_path):
+    """Swapping a QP's model rebuilds its program from the new weights."""
+    eng = Engine(out_dir=str(tmp_path), batch_frames=2)
+    frames = synth_frames(2, 24, 40, seed=2)
+    for qp_table in (37, 22):
+        p = synth_engine_params(qp_table)
+        eng.set_model(30, p)
+        assert (eng.restore(frames, 30) == O.forward_blu(frames, p)).all()

@@ -1,7 +1,7 @@
 """End-to-end golden-PSNR regression (kernel.cu:105-115 analog).
 
 Regenerates the deterministic real-photo clip + JPEG anchors
-(qcnn_gpu_tpu/data/golden.py), loads the COMMITTED per-QP engine model
+(qcnn_gpu/data/golden.py), loads the COMMITTED per-QP engine model
 files, runs the production engine, and compares per-QP PSNR against the
 committed goldens to ±0.01 dB. A ±1-LSB numeric regression anywhere in
 preprocess -> 4 fused stages -> requant -> residual add flips many output
@@ -15,14 +15,14 @@ import os
 import numpy as np
 import pytest
 
-from qcnn_gpu_tpu.data import yuv
-from qcnn_gpu_tpu.data.golden import GOLDEN_DIR, QP_QUALITY, golden_clip, jpeg_anchor
-from qcnn_gpu_tpu.data.model_files import (
+from qcnn_gpu.data import yuv
+from qcnn_gpu.data.golden import GOLDEN_DIR, QP_QUALITY, golden_clip, jpeg_anchor
+from qcnn_gpu.data.model_files import (
     read_psnr_goldens,
     read_static_qfp_auto,
     read_static_qfp_vect_c,
 )
-from qcnn_gpu_tpu.models.qvrcnn import make_forward
+from qcnn_gpu.models.qvrcnn import make_forward
 
 pytestmark = pytest.mark.skipif(
     not os.path.exists(os.path.join(GOLDEN_DIR, "psnr_golden.json")),
@@ -77,7 +77,7 @@ def test_cli_run_reproduces_golden(tmp_path, goldens, eval_clip, capsys):
     """The CLI harness path (cmd_run -> Engine -> metrics log) end-to-end
     on disk artifacts: YUV files in, committed QP37 model, recon + PSNR
     out — the `testqvrcnn` analog driven exactly as a user would."""
-    from qcnn_gpu_tpu import cli
+    from qcnn_gpu import cli
 
     qp = 37
     anchor = jpeg_anchor(eval_clip, QP_QUALITY[qp], tag="hopper_eval")
@@ -121,7 +121,7 @@ def composite_goldens():
 
 @pytest.fixture(scope="module")
 def composite_eval_clip(composite_goldens):
-    from qcnn_gpu_tpu.data.golden import composite_clip
+    from qcnn_gpu.data.golden import composite_clip
 
     return composite_clip(
         composite_goldens["frames_eval"], phase=composite_goldens["phase"]
@@ -147,7 +147,7 @@ def test_engine_reproduces_composite_golden(qp, composite_goldens, composite_eva
 def test_composite_golden_via_tiled_path(composite_goldens, composite_eval_clip):
     """The host-tiled fallback (engine/tiled.py, the divided_run analog)
     reproduces the same composite golden — the big-frame code path."""
-    from qcnn_gpu_tpu.engine.tiled import restore_tiled
+    from qcnn_gpu.engine.tiled import restore_tiled
 
     qp = 37
     g = composite_goldens["goldens"][str(qp)]
@@ -164,7 +164,7 @@ def test_golden_via_duplex_transport(goldens, eval_clip):
     Engine.restore_stream(transport='duplex') reproduces the committed
     golden PSNR exactly — temporal-delta H2D and packed-residual D2H
     both exercised with production residual statistics."""
-    from qcnn_gpu_tpu.engine import Engine
+    from qcnn_gpu.engine import Engine
 
     qp = 37
     g = goldens["goldens"][str(qp)]
@@ -224,10 +224,8 @@ def test_int4_engine_reproduces_golden_psnr(qp, int4_goldens, eval_clip):
 # ---------------------------------------------------------------------------
 # 1080p golden content (VERDICT r4 #3): the committed 240p-trained models
 # evaluated at the FLAGSHIP geometry — native 1920x1080 composite pan —
-# through BOTH the XLA engine (host-tiled, the TPU production path at this
-# geometry) and the tuned pallas3 kernel (interpret mode on CPU), pinned
-# to committed goldens. This is the geometry where the band-split /
-# atlas-spill / per-geometry-tile kernel classes actually engage.
+# through the XLA engine (host-tiled here to bound the CPU test's memory),
+# pinned to committed goldens.
 # ---------------------------------------------------------------------------
 
 _1080P_JSON = os.path.join(GOLDEN_DIR, "psnr_golden_1080p.json")
@@ -243,14 +241,14 @@ def goldens_1080p():
 
 @pytest.fixture(scope="module")
 def fullhd_eval():
-    from qcnn_gpu_tpu.data.golden import fullhd_clip
+    from qcnn_gpu.data.golden import fullhd_clip
 
     return fullhd_clip()
 
 
 @pytest.mark.parametrize("qp", sorted(QP_QUALITY))
 def test_engine_reproduces_1080p_golden(qp, goldens_1080p, fullhd_eval):
-    from qcnn_gpu_tpu.engine.tiled import restore_tiled
+    from qcnn_gpu.engine.tiled import restore_tiled
 
     g = goldens_1080p["goldens"].get(str(qp))
     if g is None:
@@ -268,37 +266,12 @@ def test_engine_reproduces_1080p_golden(qp, goldens_1080p, fullhd_eval):
     assert after > before, f"QP{qp} 1080p: no gain ({before:.3f} -> {after:.3f})"
 
 
-def test_pallas3_tuned_reproduces_1080p_golden(goldens_1080p, fullhd_eval):
-    """The TUNED production kernel (pallas3, per-geometry tile config, v5
-    s1 mode) reproduces the 1080p golden bit-for-bit vs the XLA engine —
-    one QP (the interpret-mode kernel at 2 Mpx is minutes-class; QP37 has
-    the largest restoration gain, so drift is most visible here)."""
-    from qcnn_gpu_tpu.engine.tiled import restore_tiled
-    from qcnn_gpu_tpu.ops.tuning import tuned_kwargs
-
-    qp = 37
-    g = goldens_1080p["goldens"].get(str(qp))
-    if g is None:
-        pytest.skip("no 1080p golden for QP37")
-    from qcnn_gpu_tpu.ops.pallas_pipeline3 import build_pallas_forward3
-
-    anchor = jpeg_anchor(fullhd_eval, QP_QUALITY[qp], tag="fullhd_eval")[:1]
-    p = read_static_qfp_vect_c(os.path.join(GOLDEN_DIR, f"model_q{qp}.data"))
-    kw = {k: v for k, v in tuned_kwargs(h=1080, w=1920).items() if k != "kernel"}
-    run = build_pallas_forward3(p, interpret=True, **kw)
-    got = np.asarray(run(anchor))
-    want = restore_tiled(make_forward(p, impl="auto"), anchor, 540, 960)
-    assert (got == want).all(), (
-        f"tuned pallas3 diverges from XLA at 1080p: {np.sum(got != want)} px"
-    )
-
-
 def test_int4_pc_golden_via_duplex_transport(int4_goldens, eval_clip):
     """Composition: the committed per-channel INT4 model (QP37, pc
     format) streamed through the duplex block-sparse wire reproduces its
     committed golden — the round-5 quantization extension and the wire
     transport exercised together."""
-    from qcnn_gpu_tpu.engine import Engine
+    from qcnn_gpu.engine import Engine
 
     qp = 37
     g = int4_goldens["goldens"].get(str(qp))
@@ -332,14 +305,14 @@ def goldens_classa():
 
 @pytest.fixture(scope="module")
 def classa_eval():
-    from qcnn_gpu_tpu.data.golden import classa_clip
+    from qcnn_gpu.data.golden import classa_clip
 
     return classa_clip()
 
 
 @pytest.mark.parametrize("qp", [22, 37])  # PSNR extremes; 2x 4.1 Mpx
 def test_engine_reproduces_classa_golden(qp, goldens_classa, classa_eval):
-    from qcnn_gpu_tpu.engine.tiled import restore_tiled
+    from qcnn_gpu.engine.tiled import restore_tiled
 
     g = goldens_classa["goldens"].get(str(qp))
     if g is None:

@@ -1,15 +1,16 @@
-"""MFU accounting sanity (engine/mfu.py)."""
+"""Useful-work accounting and the GPU peak table (engine/mfu.py)."""
 
 import pytest
 
 pytestmark = pytest.mark.quick  # fast host tier: `pytest -m quick`
 
-from qcnn_gpu_tpu.engine.mfu import (
+from qcnn_gpu.engine.mfu import (
     USEFUL_MACS_PER_PX,
     chip_peaks,
     mfu_report,
-    pass_model_summary,
 )
+
+H100_SXM = "NVIDIA H100 80GB HBM3"
 
 
 def test_useful_macs_match_topology():
@@ -17,48 +18,28 @@ def test_useful_macs_match_topology():
     assert USEFUL_MACS_PER_PX == 1600 + 18432 + 25600 + 6912 + 1536 + 432
 
 
-def test_pass_model_totals():
-    pm = pass_model_summary()
-    assert pm["useful_macs_per_px"] == USEFUL_MACS_PER_PX
-    assert pm["total_px_units"] == 14.0  # (1 + 15 + 6 + 6) / 2
-    assert pm["structural_mfu_ceiling"] == pytest.approx(54512 / (14 * 16384), abs=1e-4)
-    # S4 is the canonical lane-waste stage: <1% useful of issued
-    assert pm["stages"]["S4"]["useful_frac"] < 0.01
-
-
 def test_chip_peaks_lookup():
-    assert chip_peaks("TPU v5 lite") == (394.0, 197.0)
-    assert chip_peaks("TPU v4") == (275.0, 275.0)
-    assert chip_peaks("unknown accelerator") == (None, None)
+    # NVIDIA H100 data sheet, SXM, dense: int8 TOP/s, bf16 TFLOP/s, TB/s
+    assert chip_peaks(H100_SXM) == (1979.0, 989.0, 3.35)
+
+
+@pytest.mark.parametrize(
+    "kind", ["cpu", "", "NVIDIA H100 PCIe", "NVIDIA A100-SXM4-80GB", "nvidia h100 80gb hbm3"]
+)
+def test_unknown_device_kind_raises(kind):
+    """No default: a device without a published row is an error."""
+    with pytest.raises(ValueError, match="no published peaks"):
+        chip_peaks(kind)
 
 
 def test_mfu_report_consistency():
-    r = mfu_report(1920 * 1080, 4.593, "TPU v5 lite")
-    # 54512 MACs/px * 2.07Mpx / 4.593ms = ~49.2 TOPS
-    assert r["sustained_useful_tops"] == pytest.approx(49.2, abs=0.5)
-    assert r["mfu_vs_int8_peak"] == pytest.approx(r["sustained_useful_tops"] / 394, abs=1e-3)
-    assert r["mfu_vs_bf16_peak"] == pytest.approx(2 * r["mfu_vs_int8_peak"], abs=1e-3)
-    assert 5.0 < r["mxu_pass_rows_per_cycle_at_940mhz"] < 10.0
+    r = mfu_report(1920 * 1080, 2.51, H100_SXM)
+    # 54512 MACs/px * 2.07 Mpx / 2.51 ms * 2 ops/MAC = ~90.0 TOP/s
+    assert r["sustained_useful_tops"] == pytest.approx(90.0, abs=0.5)
+    assert r["util_vs_int8_peak"] == pytest.approx(r["sustained_useful_tops"] / 1979, abs=1e-4)
+    assert r["util_vs_bf16_peak"] == pytest.approx(2 * r["util_vs_int8_peak"], abs=1e-3)
 
 
-def test_tuned_per_geometry_selection(tmp_path, monkeypatch):
-    """build_tuned(h, w) must pick the per-geometry class entry."""
-    import json
-
-    from qcnn_gpu_tpu.ops import tuning
-
-    cfg = {
-        "th": 64, "we": 256, "wc": 1, "kernel": 3,
-        "per_geometry": {
-            "1080x1920": {"th": 72, "we": 256, "wc": 1, "kernel": 3},
-            "720x1280": {"th": 90, "we": 256, "wc": 1, "kernel": 3},
-        },
-    }
-    path = str(tmp_path / "tuned.json")
-    json.dump(cfg, open(path, "w"))
-    monkeypatch.setenv("QCNN_KERNEL_CONFIG", path)
-    assert tuning.tuned_kwargs(h=1080, w=1920)["th"] == 72
-    assert tuning.tuned_kwargs(h=720, w=1280)["th"] == 90
-    # nearest class by log-pixel distance serves unseen geometries
-    assert tuning.tuned_kwargs(h=1088, w=1920)["th"] == 72
-    assert tuning.tuned_kwargs(h=32, w=48)["th"] == 90  # nearest = 720p
+def test_mfu_report_unknown_device_raises():
+    with pytest.raises(ValueError):
+        mfu_report(1920 * 1080, 2.51, "cpu")

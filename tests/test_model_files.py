@@ -5,8 +5,8 @@ import pytest
 
 pytestmark = pytest.mark.quick  # fast host tier: `pytest -m quick`
 
-from qcnn_gpu_tpu.data import model_files as MF
-from qcnn_gpu_tpu.testing import synth_dynamic_params, synth_engine_params, synth_float_weights
+from qcnn_gpu.data import model_files as MF
+from qcnn_gpu.testing import synth_dynamic_params, synth_engine_params, synth_float_weights
 
 
 def _assert_engine_equal(a, b):
@@ -98,7 +98,7 @@ def test_float_nchw_roundtrip_and_size(tmp_path):
 
 def test_cli_convert_all_families(tmp_path):
     """cli convert handles all five on-disk formats, within-family."""
-    from qcnn_gpu_tpu.cli import main as cli_main
+    from qcnn_gpu.cli import main as cli_main
 
     p = synth_engine_params(37)
     src = str(tmp_path / "m.hwcn")
@@ -165,7 +165,7 @@ def test_vect_c_padding_zeros():
 
 
 def test_psnr_goldens_readable():
-    from qcnn_gpu_tpu.testing import asset
+    from qcnn_gpu.testing import asset
 
     for qp in (22, 27, 32, 37):
         g = MF.read_psnr_goldens(asset(f"psnr_static_{qp}.data"))

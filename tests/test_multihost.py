@@ -28,10 +28,10 @@ WORKER = textwrap.dedent(
         coordinator_address=f"127.0.0.1:{{port}}", num_processes=nproc, process_id=pid
     )
     import numpy as np
-    from qcnn_gpu_tpu.models import oracle as O
-    from qcnn_gpu_tpu.parallel.distributed import DistributedRunner
-    from qcnn_gpu_tpu.parallel.mesh import make_mesh
-    from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
+    from qcnn_gpu.models import oracle as O
+    from qcnn_gpu.parallel.distributed import DistributedRunner
+    from qcnn_gpu.parallel.mesh import make_mesh
+    from qcnn_gpu.testing import synth_engine_params, synth_frames
 
     ndev = len(jax.devices())
     assert jax.process_count() == nproc
@@ -91,10 +91,10 @@ def test_distributed_runner_duplex_stream_bit_exact():
     bit-exact vs the oracle."""
     import numpy as np
 
-    from qcnn_gpu_tpu.models import oracle as O
-    from qcnn_gpu_tpu.parallel.distributed import DistributedRunner
-    from qcnn_gpu_tpu.parallel.mesh import make_mesh
-    from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
+    from qcnn_gpu.models import oracle as O
+    from qcnn_gpu.parallel.distributed import DistributedRunner
+    from qcnn_gpu.parallel.mesh import make_mesh
+    from qcnn_gpu.testing import synth_engine_params, synth_frames
 
     p = synth_engine_params(37)
     mesh = make_mesh(2, 4)
@@ -125,10 +125,10 @@ def test_distributed_runner_duplex_on_2d_mesh():
     """Duplex wire into a 2-D (dp, sp, sw) sharded restore."""
     import numpy as np
 
-    from qcnn_gpu_tpu.models import oracle as O
-    from qcnn_gpu_tpu.parallel.distributed import DistributedRunner
-    from qcnn_gpu_tpu.parallel.mesh import make_mesh
-    from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
+    from qcnn_gpu.models import oracle as O
+    from qcnn_gpu.parallel.distributed import DistributedRunner
+    from qcnn_gpu.parallel.mesh import make_mesh
+    from qcnn_gpu.testing import synth_engine_params, synth_frames
 
     p = synth_engine_params(27)
     mesh = make_mesh(2, 2, sw=2)
@@ -152,9 +152,9 @@ THROUGHPUT_WORKER = textwrap.dedent(
             process_id=pid,
         )
     import numpy as np
-    from qcnn_gpu_tpu.parallel.distributed import DistributedRunner
-    from qcnn_gpu_tpu.parallel.mesh import make_mesh
-    from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
+    from qcnn_gpu.parallel.distributed import DistributedRunner
+    from qcnn_gpu.parallel.mesh import make_mesh
+    from qcnn_gpu.testing import synth_engine_params, synth_frames
 
     ndev = len(jax.devices())
     mesh = make_mesh(ndev, 1)

@@ -5,9 +5,9 @@ import pytest
 
 pytestmark = pytest.mark.quick  # fast host tier: `pytest -m quick`
 
-from qcnn_gpu_tpu import native
-from qcnn_gpu_tpu.data import yuv
-from qcnn_gpu_tpu.testing import synth_frames
+from qcnn_gpu import native
+from qcnn_gpu.data import yuv
+from qcnn_gpu.testing import synth_frames
 
 
 needs_native = pytest.mark.skipif(native.lib() is None, reason="no C++ toolchain")
@@ -70,7 +70,7 @@ def test_native_duplex_pack_matches_numpy():
     byte-identical payloads to the NumPy packer that defines the
     semantics — zero, nibble, and raw block classes all engaged, plus a
     ragged tail block (size not a multiple of 256)."""
-    from qcnn_gpu_tpu.engine.packed import _bucket, _pack_payload_numpy
+    from qcnn_gpu.engine.packed import _bucket, _pack_payload_numpy
 
     rng = np.random.default_rng(11)
     h, w, b = 40, 45, 3  # b*h*w = 5400: 21 blocks + 24-px tail
@@ -96,8 +96,8 @@ def test_native_duplex_pack_matches_numpy():
 
 @needs_native
 def test_native_residual_decode_matches_numpy():
-    from qcnn_gpu_tpu import native
-    from qcnn_gpu_tpu.engine.packed import make_packed_restore
+    from qcnn_gpu import native
+    from qcnn_gpu.engine.packed import make_packed_restore
 
     import jax.numpy as jnp
 
@@ -129,7 +129,7 @@ def test_native_duplex_decode_matches_numpy(monkeypatch):
     straddling tail block)."""
     import jax.numpy as jnp
 
-    from qcnn_gpu_tpu.engine import packed as P
+    from qcnn_gpu.engine import packed as P
 
     rng = np.random.default_rng(17)
     h, w, b = 24, 37, 3  # b*h*w = 2664: 10 blocks + tail
@@ -174,7 +174,7 @@ def test_native_duplex_decode_matches_numpy(monkeypatch):
 
 @needs_native
 def test_native_duplex_predict_matches_numpy():
-    from qcnn_gpu_tpu.engine.packed import _predict_changed_blocks
+    from qcnn_gpu.engine.packed import _predict_changed_blocks
 
     rng = np.random.default_rng(23)
     for h, w, b in ((24, 37, 3), (64, 256, 2), (40, 45, 1)):

@@ -5,8 +5,8 @@ import pytest
 
 pytestmark = pytest.mark.quick  # fast host tier: `pytest -m quick`
 
-from qcnn_gpu_tpu.models import oracle as O
-from qcnn_gpu_tpu.testing import synth_dynamic_params, synth_engine_params, synth_frames
+from qcnn_gpu.models import oracle as O
+from qcnn_gpu.testing import synth_dynamic_params, synth_engine_params, synth_frames
 
 
 def test_preprocess_range():

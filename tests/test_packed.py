@@ -6,14 +6,14 @@ import pytest
 
 pytestmark = pytest.mark.quick  # fast host tier: `pytest -m quick`
 
-from qcnn_gpu_tpu.engine.packed import (
+from qcnn_gpu.engine.packed import (
     make_packed_restore,
     measure_stream_fps_packed,
     packed_roundtrip_bytes,
 )
-from qcnn_gpu_tpu.models import oracle as O
-from qcnn_gpu_tpu.models.qvrcnn import make_forward
-from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
+from qcnn_gpu.models import oracle as O
+from qcnn_gpu.models.qvrcnn import make_forward
+from qcnn_gpu.testing import synth_engine_params, synth_frames
 
 
 def test_packed_roundtrip_bit_exact_engine():
@@ -107,7 +107,7 @@ def _video_like_batches(n_batches, b, h, w, seed=0, jump=6):
 def test_duplex_roundtrip_bit_exact_chain():
     """Duplex transport (sparse temporal-delta H2D + predicted-sparse
     residual-delta D2H) decodes bit-exactly across a chained sequence."""
-    from qcnn_gpu_tpu.engine.packed import make_duplex_restore
+    from qcnn_gpu.engine.packed import make_duplex_restore
 
     p = synth_engine_params(37)
     run = make_forward(p, impl="int")
@@ -128,7 +128,7 @@ def test_duplex_roundtrip_bit_exact_chain():
 def test_duplex_capacity_overflow_goes_full():
     """A batch whose temporal deltas defeat the format must ship
     full-frame (lossless fallback), never a corrupted packed batch."""
-    from qcnn_gpu_tpu.engine.packed import make_duplex_restore
+    from qcnn_gpu.engine.packed import make_duplex_restore
 
     rng = np.random.default_rng(1)
     # > 1024 (the capacity floor) exceptional pixels: uncorrelated frames
@@ -146,7 +146,7 @@ def test_duplex_residual_overflow_dense_fallback():
     an error upward."""
     import jax.numpy as jnp
 
-    from qcnn_gpu_tpu.engine.packed import make_duplex_restore
+    from qcnn_gpu.engine.packed import make_duplex_restore
 
     rng = np.random.default_rng(4)
     h, w, b = 64, 64, 2
@@ -179,7 +179,7 @@ def test_duplex_residual_overflow_dense_fallback():
 
 
 def test_duplex_streaming_loop_bit_exact():
-    from qcnn_gpu_tpu.engine.packed import (
+    from qcnn_gpu.engine.packed import (
         make_duplex_restore,
         measure_stream_fps_duplex,
     )
@@ -202,7 +202,7 @@ def test_duplex_block_sparse_static_scene():
     """Static background + fast uncorrelated moving object: zero blocks
     ship nothing in EITHER direction — wire bytes land far below the raw
     frames while staying bit-exact."""
-    from qcnn_gpu_tpu.engine.packed import make_duplex_restore
+    from qcnn_gpu.engine.packed import make_duplex_restore
 
     rng = np.random.default_rng(3)
     h, w, b = 128, 512, 2
@@ -232,7 +232,7 @@ def test_duplex_prediction_is_sound_vs_receptive_field():
     net's residual can change: run the INT engine (receptive radius 6)
     on two frames differing in ONE pixel and assert the un-predicted
     region decodes identically anyway (it is exactly zero delta)."""
-    from qcnn_gpu_tpu.engine.packed import make_duplex_restore
+    from qcnn_gpu.engine.packed import make_duplex_restore
 
     p = synth_engine_params(32)
     run = make_forward(p, impl="int")
@@ -249,7 +249,7 @@ def test_duplex_prediction_is_sound_vs_receptive_field():
 
 
 def test_duplex_bytes_roundtrip_quarters_the_wire():
-    from qcnn_gpu_tpu.engine.packed import duplex_roundtrip_bytes
+    from qcnn_gpu.engine.packed import duplex_roundtrip_bytes
 
     h2d, d2h = duplex_roundtrip_bytes((16, 1080, 1920))
     raw = 16 * 1080 * 1920

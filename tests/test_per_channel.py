@@ -13,18 +13,18 @@ import io
 import numpy as np
 import pytest
 
-from qcnn_gpu_tpu.models import float_model as FM
-from qcnn_gpu_tpu.models import oracle as O
-from qcnn_gpu_tpu.models.qvrcnn import make_forward
-from qcnn_gpu_tpu.quant.params import LayerQuantVec
-from qcnn_gpu_tpu.quant.solver import (
+from qcnn_gpu.models import float_model as FM
+from qcnn_gpu.models import oracle as O
+from qcnn_gpu.models.qvrcnn import make_forward
+from qcnn_gpu.quant.params import LayerQuantVec
+from qcnn_gpu.quant.solver import (
     BLU_INIT,
     solve_network,
     solve_network_per_channel,
     stepw_from_weights,
     stepw_per_channel,
 )
-from qcnn_gpu_tpu.testing import synth_frames
+from qcnn_gpu.testing import synth_frames
 
 pytestmark = pytest.mark.quick
 
@@ -106,20 +106,8 @@ def test_engine_bit_exact_on_per_channel_table(float_lists):
         assert (got == want).all(), impl
 
 
-def test_pallas_bit_exact_on_per_channel_table(float_lists):
-    from qcnn_gpu_tpu.ops.pallas_pipeline3 import build_pallas_forward3
-
-    ws, bs = float_lists
-    ep = O.EngineParams.from_float(ws, bs, _table(ws), wbits=4)
-    x = synth_frames(2, 40, 300, seed=6)
-    want = O.forward_blu(x, ep)
-    for s1 in ("a1t", "op6"):
-        run = build_pallas_forward3(ep, th=8, interpret=True, s1=s1)
-        assert (np.asarray(run(x)) == want).all(), s1
-
-
 def test_pc_format_roundtrip(float_lists):
-    from qcnn_gpu_tpu.data.model_files import (
+    from qcnn_gpu.data.model_files import (
         read_static_qfp_auto,
         read_static_qfp_pc,
         write_static_qfp_pc,
@@ -147,7 +135,7 @@ def test_pc_format_roundtrip(float_lists):
 def test_pc_format_collapses_scalar_tables(float_lists):
     """A scalar table written through the pc container reads back with
     scalar rows — lossless round trip for reference-style tables."""
-    from qcnn_gpu_tpu.data.model_files import (
+    from qcnn_gpu.data.model_files import (
         read_static_qfp_pc,
         write_static_qfp_pc,
     )

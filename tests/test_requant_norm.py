@@ -12,7 +12,7 @@ import pytest
 
 pytestmark = pytest.mark.quick  # fast host tier: `pytest -m quick`
 
-from qcnn_gpu_tpu.ops.requant import (
+from qcnn_gpu.ops.requant import (
     check_blu_requant_i32_safe,
     normalize_mul_shift,
 )
@@ -63,9 +63,9 @@ def test_int4_model_engine_matches_oracle_end_to_end():
     """The original failure, as a fixture-free regression: synthesize a
     table with a power-of-two-heavy (mul, shift) on one layer and assert
     engine == oracle bit-for-bit."""
-    from qcnn_gpu_tpu.models import oracle as O
-    from qcnn_gpu_tpu.models.qvrcnn import make_forward
-    from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
+    from qcnn_gpu.models import oracle as O
+    from qcnn_gpu.models.qvrcnn import make_forward
+    from qcnn_gpu.testing import synth_engine_params, synth_frames
 
     p = synth_engine_params(37)
     mul = list(p.mul)

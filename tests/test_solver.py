@@ -5,7 +5,7 @@ import pytest
 
 pytestmark = pytest.mark.quick  # fast host tier: `pytest -m quick`
 
-from qcnn_gpu_tpu.quant import (
+from qcnn_gpu.quant import (
     BLU_INIT,
     QuantTable,
     solve_concat,
@@ -16,7 +16,7 @@ from qcnn_gpu_tpu.quant import (
     solve_network,
     stepw_from_weights,
 )
-from qcnn_gpu_tpu.testing import asset
+from qcnn_gpu.testing import asset
 
 QPS = (22, 27, 32, 37)
 

@@ -5,10 +5,10 @@ import pytest
 
 import jax
 
-from qcnn_gpu_tpu.models import oracle as O
-from qcnn_gpu_tpu.parallel import make_mesh, make_sharded_forward, mesh_shape_for
-from qcnn_gpu_tpu.parallel.spatial import psnr_sharded
-from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
+from qcnn_gpu.models import oracle as O
+from qcnn_gpu.parallel import make_mesh, make_sharded_forward, mesh_shape_for
+from qcnn_gpu.parallel.spatial import psnr_sharded
+from qcnn_gpu.testing import synth_engine_params, synth_frames
 
 
 def _need_devices(n):
@@ -38,49 +38,9 @@ def test_sharded_small_rows_per_device():
     assert (np.asarray(run(x)) == O.forward_blu(x, p)).all()
 
 
-@pytest.mark.parametrize("dp,sp", [(2, 4), (4, 2)])
-def test_sharded_pallas_kernel_bit_exact(dp, sp):
-    """The fused width-packed Pallas kernel UNDER the mesh (VERDICT r1 #3):
-    halo-exchanged shards feed the kernel with dynamic (row_lo, row_hi)
-    frame bounds; output must equal the oracle bit-for-bit, including the
-    frame-top/bottom shards whose halos lie outside the frame."""
-    _need_devices(dp * sp)
-    p = synth_engine_params(37)
-    mesh = make_mesh(dp, sp)
-    run = make_sharded_forward(p, mesh, impl="pallas3")
-    # W=300 forces two column tiles at we=256; rows 24/shard exceed halo 6
-    x = synth_frames(dp * 2, sp * 24, 300, seed=dp * 10 + sp)
-    want = O.forward_blu(x, p)
-    got = np.asarray(run(x))
-    assert (got == want).all(), f"{np.sum(got != want)} mismatches at mesh {dp}x{sp}"
-
-
-def test_sharded_auto_degrades_on_kernel_build_failure(monkeypatch):
-    """impl='auto' under a mesh must fall back to the sharded XLA graph
-    when the kernel builder raises (bad tuned config / Mosaic reject) —
-    same policy as the single-chip engine."""
-    _need_devices(4)
-    import jax
-
-    from qcnn_gpu_tpu.ops import pallas_pipeline3
-    from qcnn_gpu_tpu.parallel import spatial as spatial_mod
-
-    def broken(*a, **k):
-        raise RuntimeError("Mosaic: failed to legalize")
-
-    monkeypatch.setattr(pallas_pipeline3, "build_pallas_forward3", broken)
-    monkeypatch.setattr(spatial_mod.jax, "default_backend", lambda: "tpu")
-    p = synth_engine_params(37)
-    mesh = make_mesh(2, 2)
-    run = make_sharded_forward(p, mesh, impl="auto")
-    assert run.impl != "pallas3"
-    x = synth_frames(2, 48, 64, seed=1)
-    assert (np.asarray(run(x)) == O.forward_blu(x, p)).all()
-
-
 def test_psnr_sharded_matches_host():
     _need_devices(8)
-    from qcnn_gpu_tpu.data import yuv
+    from qcnn_gpu.data import yuv
 
     mesh = make_mesh(2, 4)
     a = synth_frames(2, 4 * 16, 32, seed=1)
@@ -104,7 +64,7 @@ def test_tp_int8_engine_bit_exact(tp):
     bit-exact vs the oracle — integer psum is exact, so the epilogue sees
     identical accumulators regardless of tp."""
     _need_devices(tp)
-    from qcnn_gpu_tpu.parallel.tensor import make_tp_int8_forward
+    from qcnn_gpu.parallel.tensor import make_tp_int8_forward
 
     p = synth_engine_params(32)
     mesh = make_mesh(1, tp)
@@ -122,7 +82,7 @@ def test_tp_conv_pair_matches_unsharded():
     import jax.numpy as jnp
     from jax import lax
 
-    from qcnn_gpu_tpu.parallel.tensor import make_tp_conv_pair
+    from qcnn_gpu.parallel.tensor import make_tp_conv_pair
 
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.normal(size=(1, 16, 24, 8)), jnp.float32)
@@ -161,26 +121,13 @@ def test_sharded_2d_bit_exact(dp, sp, sw):
     assert (got == want).all(), f"{np.sum(got != want)} mismatches at {dp}x{sp}x{sw}"
 
 
-def test_sharded_2d_pallas_kernel_bit_exact():
-    """The fused Pallas kernel under the 2-D mesh: traced (row, col) frame
-    bounds replace the static edge masks; output == oracle bit-for-bit."""
-    _need_devices(8)
-    p = synth_engine_params(27)
-    mesh = make_mesh(2, 2, sw=2)
-    run = make_sharded_forward(p, mesh, impl="pallas3")
-    x = synth_frames(2 * 2, 2 * 24, 2 * 40, seed=5)
-    want = O.forward_blu(x, p)
-    got = np.asarray(run(x))
-    assert (got == want).all(), f"{np.sum(got != want)} mismatches (2x2x2 pallas)"
-
-
 def test_sharded_2d_4k_geometry():
     """A 4K-class frame over a (1, 2, 4) mesh: >8-way-shardable geometry
     the row-only mesh could not reach with balanced shards; sampled pixel
     equality vs the whole-frame XLA graph (the oracle needs minutes at
     4K; the graph is oracle-certified by test_model_vs_oracle)."""
     _need_devices(8)
-    from qcnn_gpu_tpu.models.qvrcnn import make_forward
+    from qcnn_gpu.models.qvrcnn import make_forward
 
     p = synth_engine_params(22)
     mesh = make_mesh(1, 2, sw=4)
@@ -193,7 +140,7 @@ def test_sharded_2d_4k_geometry():
 
 def test_psnr_sharded_2d():
     _need_devices(8)
-    from qcnn_gpu_tpu.data import yuv
+    from qcnn_gpu.data import yuv
 
     mesh = make_mesh(2, 2, sw=2)
     a = synth_frames(2, 2 * 16, 2 * 24, seed=4)
@@ -208,19 +155,3 @@ def test_mesh_shape_2d_heuristic():
     # few rows force the spatial factor onto columns
     dp, sp, sw = mesh_shape_for(8, frames=1, rows=128, cols=3840)
     assert (dp, sp) == (1, 2) and sw > 1
-
-
-def test_sharded_pallas3_op6_bit_exact(monkeypatch):
-    """Kernel v5 (s1=op6, the in-kernel S1 tap restack) UNDER the mesh:
-    the tuned-file s1 knob reaches the sharded kernel build (via the
-    QCNN_KERNEL_S1 env tier) and the halo-sharded program stays bit-exact
-    incl. the dynamic frame-bound masks."""
-    _need_devices(4)
-    monkeypatch.setenv("QCNN_KERNEL_S1", "op6")
-    p = synth_engine_params(27)
-    mesh = make_mesh(2, 2)
-    run = make_sharded_forward(p, mesh, impl="pallas3")
-    x = synth_frames(4, 2 * 24, 300, seed=77)
-    want = O.forward_blu(x, p)
-    got = np.asarray(run(x))
-    assert (got == want).all(), f"{np.sum(got != want)} mismatches (op6 x mesh)"

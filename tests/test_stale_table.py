@@ -13,9 +13,9 @@ import pytest
 
 pytestmark = pytest.mark.quick  # fast host tier: `pytest -m quick`
 
-from qcnn_gpu_tpu.data import model_files
-from qcnn_gpu_tpu.quant.params import QuantTable
-from qcnn_gpu_tpu.testing import asset, synth_engine_params
+from qcnn_gpu.data import model_files
+from qcnn_gpu.quant.params import QuantTable
+from qcnn_gpu.testing import asset, synth_engine_params
 
 
 def test_qp22_pickle_warns_and_fixes():

@@ -13,11 +13,11 @@ pytestmark = pytest.mark.quick  # fast host tier: `pytest -m quick`
 
 import jax
 
-from qcnn_gpu_tpu.engine.runner import Engine
-from qcnn_gpu_tpu.engine.stream import measure_stream_fps, pipeline_restore
-from qcnn_gpu_tpu.models import oracle as O
-from qcnn_gpu_tpu.models.qvrcnn import make_forward
-from qcnn_gpu_tpu.testing import synth_engine_params, synth_frames
+from qcnn_gpu.engine.runner import Engine
+from qcnn_gpu.engine.stream import measure_stream_fps, pipeline_restore
+from qcnn_gpu.models import oracle as O
+from qcnn_gpu.models.qvrcnn import make_forward
+from qcnn_gpu.testing import synth_engine_params, synth_frames
 
 
 @pytest.fixture(scope="module")

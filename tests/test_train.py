@@ -5,13 +5,13 @@ import pytest
 
 import jax
 
-from qcnn_gpu_tpu.data.datasets import PatchDataset, PrefetchLoader
-from qcnn_gpu_tpu.models import float_model as FM
-from qcnn_gpu_tpu.parallel.mesh import make_mesh
-from qcnn_gpu_tpu.quant.solver import BLU_INIT
-from qcnn_gpu_tpu.testing import synth_frames
-from qcnn_gpu_tpu.train import Trainer, TrainConfig, quant_finetune
-from qcnn_gpu_tpu.train.trainer import make_train_step
+from qcnn_gpu.data.datasets import PatchDataset, PrefetchLoader
+from qcnn_gpu.models import float_model as FM
+from qcnn_gpu.parallel.mesh import make_mesh
+from qcnn_gpu.quant.solver import BLU_INIT
+from qcnn_gpu.testing import synth_frames
+from qcnn_gpu.train import Trainer, TrainConfig, quant_finetune
+from qcnn_gpu.train.trainer import make_train_step
 
 
 def _patch_batches(n_steps, batch=4, side=32, seed=0):
@@ -74,7 +74,7 @@ def test_quant_finetune_lands_on_grid():
     out = quant_finetune(
         params, stepw, mesh, batches, blu_ub=BLU_INIT[37], lr=1e-4, log_every=0
     )
-    from qcnn_gpu_tpu.models.topology import QVRCNN_LAYERS
+    from qcnn_gpu.models.topology import QVRCNN_LAYERS
 
     for i, l in enumerate(QVRCNN_LAYERS):
         w = np.asarray(out[f"w_{l.name}"]) / stepw[i]
@@ -161,7 +161,7 @@ def test_image_triplet_dump(tmp_path):
     input|output|target per log step."""
     import numpy as np
 
-    from qcnn_gpu_tpu.train.trainer import dump_image_triplet
+    from qcnn_gpu.train.trainer import dump_image_triplet
 
     rng = np.random.default_rng(0)
     imgs = [rng.integers(0, 256, (32, 40), np.uint8) for _ in range(3)]

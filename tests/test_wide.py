@@ -10,10 +10,10 @@ accumulators regardless of width).
 import numpy as np
 import pytest
 
-from qcnn_gpu_tpu.models import wide as W
-from qcnn_gpu_tpu.parallel.mesh import make_mesh
-from qcnn_gpu_tpu.parallel.tensor import make_tp_wide_forward
-from qcnn_gpu_tpu.testing import synth_frames
+from qcnn_gpu.models import wide as W
+from qcnn_gpu.parallel.mesh import make_mesh
+from qcnn_gpu.parallel.tensor import make_tp_wide_forward
+from qcnn_gpu.testing import synth_frames
 
 
 def test_wide_solver_window():
@@ -132,8 +132,8 @@ def test_wide_fp8_psnr_parity():
     for half-of-bf16 storage)."""
     import jax.numpy as jnp
 
-    from qcnn_gpu_tpu.data import yuv
-    from qcnn_gpu_tpu.models.wide import (
+    from qcnn_gpu.data import yuv
+    from qcnn_gpu.models.wide import (
         float_forward,
         make_wide_forward_fp8,
         quantize_wide_fp8,

@@ -8,8 +8,8 @@ import math
 
 import numpy as np
 
-from qcnn_gpu_tpu.data import yuv
-from qcnn_gpu_tpu.testing import synth_frames
+from qcnn_gpu.data import yuv
+from qcnn_gpu.testing import synth_frames
 
 
 def test_roundtrip(tmp_path):
