@@ -266,9 +266,10 @@ class MergedParams:
 def residual_blu_merged(
     x_ppro: jnp.ndarray,
     mp: "MergedParams",
-    impl: str = "bf16",
+    impl: str = "int",
     row_valid: Optional[jnp.ndarray] = None,
     col_valid: Optional[jnp.ndarray] = None,
+    carry=None,
 ) -> jnp.ndarray:
     """Merged-stage core: 4 convs, per-channel vector requant. Bit-equal to
     residual_blu (tested); this is the production path.
@@ -280,15 +281,18 @@ def residual_blu_merged(
 
     Inter-stage activations are CARRIED as bf16 (bf16 path) or int8 (int
     path); both are exact because requant outputs are ints in [0,127],
-    and both move a quarter or half of the bytes an int32 carry would."""
+    and both move a quarter or half of the bytes an int32 carry would.
+    `carry` overrides that dtype (chip_smoke.py times an int32 carry
+    against int8 on the card)."""
     if impl == "bf16":
-        conv = lambda v, i: _conv_bf16(v, mp.w_bf16[i], mp.b_i32[i])
+        conv = lambda v, i: _conv_bf16(v.astype(jnp.bfloat16), mp.w_bf16[i], mp.b_i32[i])
         act_dtype = jnp.bfloat16
     elif impl == "int":
         conv = lambda v, i: _conv_int(v, mp.w_i8[i], mp.b_i32[i], mp.int_groups[i])
         act_dtype = jnp.int8
     else:
         raise ValueError(f"unknown conv impl {impl!r}; expected 'int' or 'bf16'")
+    act_dtype = carry or act_dtype
 
     mask = _valid_mask(row_valid, col_valid)
 
@@ -354,9 +358,9 @@ def _conv_int(x, w_i8, b_i32, groups: int = 1):
 
 def resolve_impl(impl: ConvImpl, mp: ModelParams) -> str:
     """The conv form to run. 'auto' is 'int' on every platform: on one
-    H100 (700 W) at 1920x1080, batch 16, int ran 2.51 ms/frame against
-    bf16's 4.82 (PERF.md), int is exact for every model, and on the CPU it
-    is the plain integer path the tests certify. An explicit 'bf16' for a
+    H100 at 1920x1080, batch 16, int took about half bf16's time per frame
+    (chip_smoke.py phase 5; numbers in PERF.md), int is exact for every
+    model, and on the CPU it is the plain integer path the tests certify. An explicit 'bf16' for a
     model outside the bf16 certificate raises: it would not be exact."""
     if impl == "auto":
         return "int"

@@ -97,8 +97,9 @@ class DistributedRunner:
         temporal deltas, the mesh restores the batch (dp frames x sp/sw
         spatial shards, halo ppermutes over NCCL), and D2H returns the
         predicted-sparse residual deltas. transport='raw' streams plain
-        frames through the same mesh program. Bit-exact either way; any
-        duplex failure falls back to raw (desynced transport evicted).
+        frames through the same mesh program. Bit-exact either way; a
+        duplex failure evicts that transport (it may be desynced) and
+        raises.
 
         batch_frames defaults to the mesh's dp extent (every chip gets a
         frame per step).
@@ -136,9 +137,10 @@ class DistributedRunner:
                 if cut < n:
                     outs.append(self._restore_padded(frames[cut:], bs))
                 return np.concatenate(outs, axis=0)
-            except Exception:
+            except BaseException:
                 # never reuse a desynced transport; other keys stay valid
                 self._duplex.pop(key, None)
+                raise
         from qcnn_gpu.engine.stream import pipeline_restore
 
         cut = (n // bs) * bs

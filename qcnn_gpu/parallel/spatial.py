@@ -85,9 +85,8 @@ def make_sharded_forward(
     parameters — broadcast once, like the engine's one-time load_para H2D,
     cnn.cu:105-106).
 
-    impl: the conv form ('int', 'bf16', or 'auto' = the platform's
-    choice, models/qvrcnn.resolve_impl) of the XLA graph run inside each
-    shard.
+    impl: the conv form ('int', 'bf16', or 'auto', which is 'int';
+    models/qvrcnn.resolve_impl) of the XLA graph run inside each shard.
 
     A mesh with an 'sw' axis (make_mesh(dp, sp, sw=...)) shards frame
     COLUMNS too — the full 2-D generalization of the reference's 2x2

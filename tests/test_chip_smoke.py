@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import jax
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,8 +88,26 @@ def test_phase_engine_tiny(tmp_path):
 
 def test_time_forms_tiny():
     times = chip_smoke.time_forms(h=16, w=24, batch=2, iters=1, reps=2)
-    assert set(times) == {"int", "bf16"}
-    assert all(len(ts) == 2 and min(ts) > 0 for ts in times.values())
+    assert set(times) == set(chip_smoke.FORMS)
+    assert all(first > 0 and len(ts) == 2 and min(ts) > 0 for first, ts in times.values())
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.FORMS))
+def test_form_program_exact(name):
+    p = synth_engine_params(37)
+    x = synth_frames(2, 20, 28, seed=11)
+    x[1] = 255
+    run = chip_smoke.form_program(p, *chip_smoke.FORMS[name])
+    assert (np.asarray(run(x)) == O.forward_blu(x, p)).all()
+
+
+def test_compare_forms_tiny():
+    chip_smoke.compare_forms(geos=((24, 40, 2), (16, 24, 1)))
+
+
+def test_phase_forms_tiny():
+    chip_smoke.phase_forms(jax.devices()[0], geos=((16, 24, 1),), h=16, w=24, batch=2,
+                           iters=1, reps=1)
 
 
 def test_phase_train_tiny():

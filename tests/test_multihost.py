@@ -14,6 +14,7 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -139,6 +140,42 @@ def test_distributed_runner_duplex_on_2d_mesh():
     assert (got == want).all(), f"{np.sum(got != want)} mismatches (duplex x 2-D mesh)"
 
 
+def test_distributed_runner_duplex_failure_raises(monkeypatch):
+    """A mid-stream duplex failure on the mesh raises (no quiet switch to
+    the raw transport) and evicts only that (geometry, batch) transport;
+    the next duplex stream builds a fresh one and is bit-exact."""
+    import numpy as np
+
+    from qcnn_gpu.engine.packed import DuplexTransport
+    from qcnn_gpu.models import oracle as O
+    from qcnn_gpu.parallel.distributed import DistributedRunner
+    from qcnn_gpu.parallel.mesh import make_mesh
+    from qcnn_gpu.testing import synth_engine_params, synth_frames
+
+    p = synth_engine_params(37)
+    r = DistributedRunner(p, mesh=make_mesh(2, 2), impl="int")
+    frames = synth_frames(6, 2 * 16, 48, seed=52)
+    want = O.forward_blu(frames, p)
+    r.restore_stream(frames[:4], transport="duplex", batch_frames=4)
+    calls = {"n": 0}
+    orig = DuplexTransport.receive
+
+    def flaky(self, x, item):
+        calls["n"] += 1
+        if calls["n"] == 2:  # fail mid-stream, after the carries advanced
+            raise RuntimeError("injected link failure")
+        return orig(self, x, item)
+
+    monkeypatch.setattr(DuplexTransport, "receive", flaky)
+    with pytest.raises(RuntimeError, match="injected link failure"):
+        r.restore_stream(frames, transport="duplex", batch_frames=2)
+    assert ((2 * 16, 48), 2) not in r._duplex  # the desynced transport went
+    assert ((2 * 16, 48), 4) in r._duplex  # other keys stay
+    monkeypatch.setattr(DuplexTransport, "receive", orig)
+    got = r.restore_stream(frames, transport="duplex", batch_frames=2)
+    assert (got == want).all()
+
+
 THROUGHPUT_WORKER = textwrap.dedent(
     """
     import sys, time
@@ -219,8 +256,7 @@ def test_two_process_throughput_overhead(tmp_path):
     tiles per batch over local TCP; the gate bounds that composition
     overhead rather than asserting scaling (CPU devices share the same
     two physical cores, so speedup is not expected — the number that
-    matters on a real pod is the OVERHEAD factor, reported in
-    SCALING.md)."""
+    matters on a real cluster is the OVERHEAD factor)."""
     fps1 = _run_throughput(1, 4, tmp_path)
     fps2 = _run_throughput(2, 4, tmp_path)
     assert fps2 > 0 and fps1 > 0
